@@ -1,11 +1,11 @@
-"""Drop-in shim: ``import analiticcl`` resolves to the TPU-native engine.
+"""Drop-in shim: ``import analiticcl`` resolves to the analiticcl_jax engine.
 
 Place this repository on PYTHONPATH and existing analiticcl code runs
 unchanged (same classes, kwargs, and dict result schemas — see
-analiticcl_tpu/api.py for the surface definition).
+analiticcl_jax/api.py for the surface definition).
 """
 
-from analiticcl_tpu.api import (  # noqa: F401
+from analiticcl_jax.api import (  # noqa: F401
     SearchParameters,
     VariantModel,
     VocabParams,

@@ -10,21 +10,35 @@ Scenarios: query_eng, query_nld_freq, search_text, learn, build_1m
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import random
 import sys
+import tempfile
 import time
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from analiticcl_tpu.models.variant_model import VariantModel
-from analiticcl_tpu.types import DistanceThreshold, SearchParameters
-from analiticcl_tpu.vocab import VocabParams, VocabType
+from analiticcl_jax import datagen
+from analiticcl_jax.datagen import corrupt
+from analiticcl_jax.models.variant_model import VariantModel
+from analiticcl_jax.types import DistanceThreshold, SearchParameters
+from analiticcl_jax.vocab import VocabParams, VocabType
 
-ALPHABET = "/root/reference/examples/simple.alphabet.tsv"
-ENG = "/root/reference/examples/eng.aspell.lexicon"
-NLD = "/root/reference/examples/nld.aspell.lexicon"
+@functools.lru_cache(maxsize=None)
+def data() -> dict:
+    """Lexicons generated from fixed seeds (analiticcl_jax.datagen) into a
+    temporary directory on first use: an eng.aspell-scale one and a second
+    at nld.aspell scale (222,908 entries)."""
+    d = tempfile.mkdtemp(prefix="analiticcl_suite_")
+    eng = datagen.make_dataset(os.path.join(d, "eng"), seed=0)
+    nld = datagen.write_lexicon(
+        os.path.join(d, "nld.tsv"), datagen.lexicon_words(222_908, 1),
+        datagen.zipf_freqs(222_908, 1),
+    )
+    return {"dir": d, "alphabet": eng["alphabet"], "eng": eng["lexicon"],
+            "nld": nld}
 
 # per-scenario steady-state measurement budget (env-overridable for quick
 # smoke runs and tight outage windows)
@@ -35,28 +49,14 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def corrupt(word, rng):
-    if len(word) < 4:
-        return word
-    i = rng.randrange(len(word) - 1)
-    c = rng.randrange(4)
-    if c == 0:
-        return word[:i] + word[i + 1 :]
-    if c == 1:
-        return word[:i] + word[i + 1] + word[i] + word[i + 2 :]
-    if c == 2:
-        return word[:i] + "x" + word[i:]
-    return word[:i] + "q" + word[i + 1 :]
-
-
 def _model(lexicon):
-    model = VariantModel(alphabet_file=ALPHABET)
+    model = VariantModel(alphabet_file=data()["alphabet"])
     model.read_vocabulary(lexicon, VocabParams())
     t0 = time.time()
     model.build()
     build_s = time.time() - t0
     model.set_backend("device")
-    from analiticcl_tpu.utils.gc_tuning import freeze_model_heap
+    from analiticcl_jax.utils.gc_tuning import freeze_model_heap
 
     freeze_model_heap()
     return model, build_s
@@ -145,7 +145,7 @@ def _throughput(model, queries, params, budget_s=None, batch=None):
 
 
 def query_eng():
-    model, build_s = _model(ENG)
+    model, build_s = _model(data()["eng"])
     rng = random.Random(1)
     words = [model.decoder[i].text for i in range(3, len(model.decoder), 7)]
     queries = [corrupt(w, rng) for w in words[:16384]]
@@ -163,7 +163,7 @@ def query_ratio():
     """Ratio thresholds (CLI ``-k 0.5 -d 0.3``): per-query distances scale
     with length, pushing long queries past edit distance 3 and compiling
     the production window-12 DL bucket (reference types.rs:75-108)."""
-    model, build_s = _model(ENG)
+    model, build_s = _model(data()["eng"])
     rng = random.Random(5)
     words = [model.decoder[i].text for i in range(3, len(model.decoder), 7)]
     queries = [corrupt(w, rng) for w in words[:16384]]
@@ -182,7 +182,7 @@ def query_ratio():
 
 
 def query_nld_freq():
-    model, build_s = _model(NLD)
+    model, build_s = _model(data()["nld"])
     model.have_freq = True  # exercise frequency-weighted ranking
     rng = random.Random(2)
     words = [model.decoder[i].text for i in range(3, len(model.decoder), 13)]
@@ -203,7 +203,7 @@ def query_nld_freq():
 
 
 def search_text():
-    model, build_s = _model(ENG)
+    model, build_s = _model(data()["eng"])
     rng = random.Random(3)
     words = [model.decoder[i].text for i in range(3, len(model.decoder), 17)]
     sentences = []
@@ -260,8 +260,8 @@ def search_lm():
     scoring. The LM (bigram counts over a synthetic corpus of lexicon words)
     forces the exact n-best object path (lattice DP + batched LM scoring);
     the array-native fast path covers the no-LM case (search_text)."""
-    model = VariantModel(alphabet_file=ALPHABET)
-    model.read_vocabulary(ENG, VocabParams())
+    model = VariantModel(alphabet_file=data()["alphabet"])
+    model.read_vocabulary(data()["eng"], VocabParams())
     rng = random.Random(8)
     words = [model.decoder[i].text for i in range(3, len(model.decoder), 17)]
     # synthetic corpus: sentences of real words; bigrams become LM entries
@@ -282,7 +282,7 @@ def search_lm():
     model.build()
     build_s = time.time() - t0
     model.set_backend("device")
-    from analiticcl_tpu.utils.gc_tuning import freeze_model_heap
+    from analiticcl_jax.utils.gc_tuning import freeze_model_heap
 
     freeze_model_heap()
     params = SearchParameters(
@@ -326,7 +326,7 @@ def search_lm():
 
 
 def learn():
-    model, build_s = _model(ENG)
+    model, build_s = _model(data()["eng"])
     rng = random.Random(4)
     words = [model.decoder[i].text for i in range(3, len(model.decoder), 7)]
     corpus = [corrupt(w, rng) for w in words[:16384]]
@@ -351,35 +351,24 @@ def learn():
 
 
 def _make_1m_lexicon(path):
-    """Synthesize a 1M-entry lexicon from nld."""
-    rng = random.Random(5)
-    base = [
-        l.split("\t")[0]
-        for l in open(NLD, encoding="utf-8").read().splitlines()
-        if l
-    ]
-    words = set()
-    while len(words) < 1_000_000:
-        w = rng.choice(base)
-        i = rng.randrange(len(w)) if len(w) > 2 else 0
-        words.add(w[:i] + rng.choice("abcdefghijklmnopqrstuvwxyz") + w[i:])
-    with open(path, "w", encoding="utf-8") as f:
-        f.write("\n".join(words))
+    """A generated 1M-entry lexicon (analiticcl_jax.datagen)."""
+    words = datagen.lexicon_words(datagen.ROWS_1M, 5)
+    datagen.write_lexicon(path, words, datagen.zipf_freqs(len(words), 5))
 
 
 def build_1m():
     import os
 
-    path = "/tmp/bench_1m.tsv"
+    path = os.path.join(data()["dir"], "bench_1m.tsv")
     if not os.path.exists(path):
         _make_1m_lexicon(path)
-    from analiticcl_tpu.utils.gc_tuning import prewarm_heap
+    from analiticcl_jax.utils.gc_tuning import prewarm_heap
 
     # provision guest memory once up front: on lazily-backed VMs the first
     # touch of fresh pages costs 50-200 ms/MB (host-load dependent), which
     # would otherwise dominate the timed build
     prewarm_heap(768 * 1024 * 1024)
-    model = VariantModel(alphabet_file=ALPHABET)
+    model = VariantModel(alphabet_file=data()["alphabet"])
     t0 = time.time()
     model.read_vocabulary(path, VocabParams())
     load_s = time.time() - t0
@@ -387,7 +376,7 @@ def build_1m():
     model.build()
     build_s = time.time() - t0
     model.set_backend("device")
-    from analiticcl_tpu.utils.gc_tuning import freeze_model_heap
+    from analiticcl_jax.utils.gc_tuning import freeze_model_heap
 
     freeze_model_heap()  # gen-2 GC over 1M decoder objects costs ~1s/pause
     rng = random.Random(6)
@@ -398,10 +387,7 @@ def build_1m():
         max_edit_distance=DistanceThreshold.absolute(2),
         max_matches=10,
     )
-    # B=2048 (the 1M-row compile ceiling) measures ~26% faster than 1024
-    # since the length-difference cut halved the band: 29.0k vs 23.0k q/s
-    # (r5 sweep, /tmp/sweep_1m2); the per-batch sync overhead amortizes
-    # across more queries
+    # B=2048: the 1M-row batch ceiling (DevicePipeline.max_B)
     qps, util = _throughput(model, queries, params, budget_s=40.0, batch=2048)
     return {
         "scenario": "build_1m",
@@ -416,14 +402,14 @@ def confusables_errors():
     """BASELINE config[2]: confusable list + error list with weighted rescoring."""
     import os
 
-    conf_path = "/tmp/bench_confusables.tsv"
+    conf_path = os.path.join(data()["dir"], "confusables.tsv")
     with open(conf_path, "w", encoding="utf-8") as f:
         f.write("-[y]+[i]\t1.2\n-[s]+[f]\t1.1\n-[rn]+[m]\t1.2\n=[c]-[e]+[a]\t1.1\n")
-    err_path = "/tmp/bench_errors.tsv"
+    err_path = os.path.join(data()["dir"], "errors.tsv")
     with open(err_path, "w", encoding="utf-8") as f:
         f.write("their\tthier\t0.9\nreceive\trecieve\t0.9\nseparate\tseperate\t0.9\n")
-    model = VariantModel(alphabet_file=ALPHABET)
-    model.read_vocabulary(ENG, VocabParams())
+    model = VariantModel(alphabet_file=data()["alphabet"])
+    model.read_vocabulary(data()["eng"], VocabParams())
     model.read_variants(err_path, VocabParams(), transparent=True)
     model.read_confusablelist(conf_path)
     t0 = time.time()
@@ -464,10 +450,10 @@ def micro():
     sys.path.insert(0, "tests")
     from fixtures import get_test_alphabet
 
-    from analiticcl_tpu import anahash as ah
-    from analiticcl_tpu.alphabet import AlphabetEncoder
-    from analiticcl_tpu.iterators import RecurseDeletionIterator
-    from analiticcl_tpu.types import Weights
+    from analiticcl_jax import anahash as ah
+    from analiticcl_jax.alphabet import AlphabetEncoder
+    from analiticcl_jax.iterators import RecurseDeletionIterator
+    from analiticcl_jax.types import Weights
 
     alphabet, _ = get_test_alphabet()
     enc = AlphabetEncoder(alphabet)
@@ -520,8 +506,8 @@ def micro():
     # full-lexicon index build (reference README shows it as startup work)
     reps = []
     for _ in range(3):
-        m = VariantModel(alphabet_file=ALPHABET)
-        m.read_vocabulary(ENG, VocabParams())
+        m = VariantModel(alphabet_file=data()["alphabet"])
+        m.read_vocabulary(data()["eng"], VocabParams())
         t0 = time.time()
         m.build()
         reps.append(time.time() - t0)
@@ -530,16 +516,16 @@ def micro():
 
 
 def sharded_query():
-    """Query throughput through the ShardedPipeline (mesh path): on this box
-    a 1x1 mesh over the single reachable chip — same shard_map program as a
-    real v5e-8 slice (dp x lex), so it times the collective/merge overhead
-    the multichip path adds (SURVEY.md §2.8; tests/test_mesh.py validates
-    bit-parity on a virtual 8-device CPU mesh)."""
+    """Query throughput through the ShardedPipeline (mesh path) on a 1x1
+    mesh over one card — the same shard_map program as a multi-card mesh
+    (dp x lex), so it times the collective/merge overhead the mesh path
+    adds (SURVEY.md §2.8; tests/test_mesh.py validates bit-parity on a
+    virtual 8-device CPU mesh)."""
     import jax
 
-    from analiticcl_tpu.parallel.mesh import ShardedPipeline, make_mesh
+    from analiticcl_jax.parallel.mesh import ShardedPipeline, make_mesh
 
-    model, build_s = _model(ENG)
+    model, build_s = _model(data()["eng"])
     mesh = make_mesh(jax.devices()[:1], dp=1)
     pipe = ShardedPipeline(model, mesh)
     rng = random.Random(1)
@@ -570,23 +556,22 @@ def sharded_query():
 def sharded_1m():
     """The 1M-entry background lexicon (BASELINE configs[4]) through the
     ShardedPipeline — the scenario lexicon sharding exists for (SURVEY §7
-    stage 7). On this box the mesh is 1x1 (one reachable chip); on a real
-    v5e-8 each lex shard holds 1/8th of the rows, shrinking every per-shard
-    stage linearly (tests/test_mesh.py proves bit-parity on a virtual
-    8-device CPU mesh, and __graft_entry__.dryrun_multichip compiles and
-    runs this exact program on 2x4)."""
+    stage 7), here on a 1x1 mesh; with n lex shards each holds 1/n of the
+    rows, shrinking every per-shard stage linearly (tests/test_mesh.py
+    proves bit-parity on a virtual 8-device CPU mesh, and
+    ``python chip_smoke.py --four`` runs it on four cards)."""
     import os
 
     import jax
 
-    from analiticcl_tpu.parallel.mesh import ShardedPipeline, make_mesh
-    from analiticcl_tpu.utils.gc_tuning import freeze_model_heap, prewarm_heap
+    from analiticcl_jax.parallel.mesh import ShardedPipeline, make_mesh
+    from analiticcl_jax.utils.gc_tuning import freeze_model_heap, prewarm_heap
 
-    path = "/tmp/bench_1m.tsv"
+    path = os.path.join(data()["dir"], "bench_1m.tsv")
     if not os.path.exists(path):
         _make_1m_lexicon(path)
     prewarm_heap(768 * 1024 * 1024)
-    model = VariantModel(alphabet_file=ALPHABET)
+    model = VariantModel(alphabet_file=data()["alphabet"])
     model.read_vocabulary(path, VocabParams())
     t0 = time.time()
     model.build()
@@ -638,14 +623,14 @@ def learn_1m():
 
     import jax
 
-    from analiticcl_tpu.parallel.mesh import make_mesh
-    from analiticcl_tpu.utils.gc_tuning import freeze_model_heap, prewarm_heap
+    from analiticcl_jax.parallel.mesh import make_mesh
+    from analiticcl_jax.utils.gc_tuning import freeze_model_heap, prewarm_heap
 
-    path = "/tmp/bench_1m.tsv"
+    path = os.path.join(data()["dir"], "bench_1m.tsv")
     if not os.path.exists(path):
         _make_1m_lexicon(path)
     prewarm_heap(768 * 1024 * 1024)
-    model = VariantModel(alphabet_file=ALPHABET)
+    model = VariantModel(alphabet_file=data()["alphabet"])
     model.read_vocabulary(path, VocabParams())
     t0 = time.time()
     model.build()
@@ -663,10 +648,8 @@ def learn_1m():
     )
     # warm the EXACT batch buckets the strict-learn stream will use (its
     # bs = min(4096, pipe.max_B), plus the tail batch's bucket): a fused
-    # compile on the remote helper costs tens of seconds and must not land
-    # inside the timed iteration (r4: learn_1m read 284 inputs/s because
-    # the 2048-bucket warmup didn't cover the 4096-bucket stream)
-    from analiticcl_tpu.ops.pipeline import get_device_pipeline
+    # compile must not land inside the timed iteration
+    from analiticcl_jax.ops.pipeline import get_device_pipeline
 
     pipe = model._device or get_device_pipeline(model)
     bs = min(4096, pipe.max_B)
@@ -718,7 +701,7 @@ def main():
         t0 = time.time()
         result = SCENARIOS[name]()
         log(f"({name} took {time.time() - t0:.1f}s total)")
-        from analiticcl_tpu.utils.provenance import stamp
+        from analiticcl_jax.utils.provenance import stamp
 
         print(json.dumps(stamp(result)), flush=True)
 

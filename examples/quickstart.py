@@ -17,7 +17,7 @@ LEXICON = "/root/reference/examples/eng.aspell.lexicon"
 
 def compat_api():
     """analiticcl-compatible surface: swap `import analiticcl` for this."""
-    from analiticcl_tpu.api import SearchParameters, VariantModel, Weights
+    from analiticcl_jax.api import SearchParameters, VariantModel, Weights
 
     model = VariantModel(ALPHABET, Weights(), debug=0)
     model.read_lexicon(LEXICON)
@@ -31,9 +31,9 @@ def compat_api():
 
 def engine_api():
     """Engine-native surface: batching, meshes, checkpoints."""
-    from analiticcl_tpu.models.variant_model import VariantModel
-    from analiticcl_tpu.types import DistanceThreshold, SearchParameters
-    from analiticcl_tpu.vocab import VocabParams
+    from analiticcl_jax.models.variant_model import VariantModel
+    from analiticcl_jax.types import DistanceThreshold, SearchParameters
+    from analiticcl_jax.vocab import VocabParams
 
     model = VariantModel(alphabet_file=ALPHABET)
     model.read_vocabulary(LEXICON, VocabParams())

@@ -1,6 +1,6 @@
 """Shared test fixtures, mirroring the reference's test module (src/test.rs:3-68)."""
 
-from analiticcl_tpu.types import (
+from analiticcl_jax.types import (
     DistanceThreshold,
     SearchParameters,
     StopCriterion,

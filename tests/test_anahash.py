@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from analiticcl_tpu.alphabet import AlphabetEncoder
-from analiticcl_tpu import anahash as ah
-from analiticcl_tpu.types import PRIMES
+from analiticcl_jax.alphabet import AlphabetEncoder
+from analiticcl_jax import anahash as ah
+from analiticcl_jax.types import PRIMES
 
 from fixtures import get_test_alphabet
 

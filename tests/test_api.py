@@ -3,7 +3,7 @@
 
 import pytest
 
-from analiticcl_tpu.api import (
+from analiticcl_jax.api import (
     SearchParameters,
     VariantModel,
     VocabParams,
@@ -75,7 +75,7 @@ def test_core_searchparameters_coerces_loose_thresholds():
     # the CORE dataclass (package root), not the api wrapper: loose int /
     # float / "r;limit" threshold spellings must coerce in __post_init__
     # instead of crashing deep in the pipeline (round-5 verify finding)
-    from analiticcl_tpu.types import (
+    from analiticcl_jax.types import (
         DistanceThreshold,
         SearchParameters as CoreParams,
         ThresholdKind,
@@ -131,7 +131,7 @@ def test_binding_surface_parity():
     classes (bindings/python/src/lib.rs)."""
     import re
 
-    import analiticcl_tpu.api as api
+    import analiticcl_jax.api as api
 
     src = open("/root/reference/bindings/python/src/lib.rs").read()
     names = set(re.findall(r"fn ([a-z_0-9]+)", src))
@@ -181,13 +181,13 @@ def test_search_mode_backend_parity_fuzz():
     backends on randomized lexicons, LMs, and texts."""
     import random
 
-    from analiticcl_tpu.models.variant_model import VariantModel
-    from analiticcl_tpu.types import (
+    from analiticcl_jax.models.variant_model import VariantModel
+    from analiticcl_jax.types import (
         DistanceThreshold,
         SearchParameters,
         Weights,
     )
-    from analiticcl_tpu.vocab import VocabParams, VocabType
+    from analiticcl_jax.vocab import VocabParams, VocabType
 
     for seed in range(4):
         rng = random.Random(seed + 100)

@@ -9,11 +9,11 @@ batches exercise multiple tiles with different band windows.
 import numpy as np
 import pytest
 
-import analiticcl_tpu.ops.pipeline as pl
-import analiticcl_tpu.ops.stage_a as sa
-from analiticcl_tpu.models.variant_model import VariantModel
-from analiticcl_tpu.types import DistanceThreshold, SearchParameters
-from analiticcl_tpu.vocab import VocabParams
+import analiticcl_jax.ops.pipeline as pl
+import analiticcl_jax.ops.stage_a as sa
+from analiticcl_jax.models.variant_model import VariantModel
+from analiticcl_jax.types import DistanceThreshold, SearchParameters
+from analiticcl_jax.vocab import VocabParams
 
 from fixtures import TEST_ALPHABET, get_test_searchparams
 

@@ -17,7 +17,7 @@ ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
 
 def run_cli(args, stdin=""):
     proc = subprocess.run(
-        [sys.executable, "-m", "analiticcl_tpu.cli", *args],
+        [sys.executable, "-m", "analiticcl_jax.cli", *args],
         input=stdin,
         capture_output=True,
         text=True,
@@ -149,7 +149,7 @@ def test_fmt_float_rust_display_semantics():
     """Rust's `{}` f64 Display: shortest round-trip digits, plain decimal
     (never scientific), integers without '.0' (bin emitters rely on this for
     byte-exact TSV/JSON parity)."""
-    from analiticcl_tpu.cli import _fmt_float
+    from analiticcl_jax.cli import _fmt_float
 
     cases = [
         (1.0, "1"),
@@ -179,7 +179,7 @@ def test_search_per_line_and_linebreaks(tmp_path):
     import io
     import sys as _sys
 
-    from analiticcl_tpu.cli import main as cli_main
+    from analiticcl_jax.cli import main as cli_main
 
     from cli_golden_cases import REF_ALPHA, small_lexicon
 

@@ -24,7 +24,7 @@ def lexicon(tmp_path_factory):
 
 
 def _run_cli(argv, stdin_lines, extra):
-    from analiticcl_tpu.cli import main as cli_main
+    from analiticcl_jax.cli import main as cli_main
 
     buf = io.StringIO()
     stdin = io.StringIO("\n".join(stdin_lines) + "\n")

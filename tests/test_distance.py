@@ -1,7 +1,7 @@
 """Normalization and distance metric parity tests (reference tests/main.rs 03xx)."""
 
-from analiticcl_tpu.anahash import normalize_to_alphabet
-from analiticcl_tpu.ops.distance import (
+from analiticcl_jax.anahash import normalize_to_alphabet
+from analiticcl_jax.ops.distance import (
     common_prefix_length,
     common_suffix_length,
     damerau_levenshtein,

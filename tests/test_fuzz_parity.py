@@ -6,14 +6,14 @@ import string
 
 import pytest
 
-from analiticcl_tpu.models.variant_model import VariantModel
-from analiticcl_tpu.types import (
+from analiticcl_jax.models.variant_model import VariantModel
+from analiticcl_jax.types import (
     DistanceThreshold,
     SearchParameters,
     StopCriterion,
     Weights,
 )
-from analiticcl_tpu.vocab import VocabParams, VocabType
+from analiticcl_jax.vocab import VocabParams, VocabType
 
 
 def _result_tuples(model, results):

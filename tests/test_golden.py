@@ -13,9 +13,9 @@ the order asserted here.)
 
 import pytest
 
-from analiticcl_tpu.models.variant_model import VariantModel
-from analiticcl_tpu.types import DistanceThreshold, SearchParameters
-from analiticcl_tpu.vocab import VocabParams
+from analiticcl_jax.models.variant_model import VariantModel
+from analiticcl_jax.types import DistanceThreshold, SearchParameters
+from analiticcl_jax.vocab import VocabParams
 
 ALPHABET = "/root/reference/examples/simple.alphabet.tsv"
 ENG = "/root/reference/examples/eng.aspell.lexicon"

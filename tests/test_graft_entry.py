@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def test_entry_args_match_query_core_signature():
     import __graft_entry__ as g
-    from analiticcl_tpu.ops.pipeline import _query_core
+    from analiticcl_jax.ops.pipeline import _query_core
 
     fn, args = g.entry()
     sig = inspect.signature(_query_core)

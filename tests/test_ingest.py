@@ -9,8 +9,8 @@ transparency removal, special-token handling.
 import numpy as np
 import pytest
 
-from analiticcl_tpu.models.variant_model import VariantModel
-from analiticcl_tpu.vocab import FrequencyHandling, VocabParams, VocabType
+from analiticcl_jax.models.variant_model import VariantModel
+from analiticcl_jax.vocab import FrequencyHandling, VocabParams, VocabType
 
 from fixtures import TEST_ALPHABET
 

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from analiticcl_tpu.alphabet import AlphabetEncoder
-from analiticcl_tpu import anahash as ah
-from analiticcl_tpu.iterators import (
+from analiticcl_jax.alphabet import AlphabetEncoder
+from analiticcl_jax import anahash as ah
+from analiticcl_jax.iterators import (
     RecurseDeletionIterator,
     iter_deletions,
     iter_values,

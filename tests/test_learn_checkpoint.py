@@ -4,9 +4,9 @@ import dataclasses
 
 import pytest
 
-from analiticcl_tpu.models.variant_model import VariantModel
-from analiticcl_tpu.types import VariantReferenceKind, Weights
-from analiticcl_tpu.vocab import VocabParams, VocabType
+from analiticcl_jax.models.variant_model import VariantModel
+from analiticcl_jax.types import VariantReferenceKind, Weights
+from analiticcl_jax.vocab import VocabParams, VocabType
 
 from fixtures import get_test_alphabet, get_test_searchparams
 
@@ -222,3 +222,49 @@ def test_learn_full_rebuild_when_lm_frequency_touched():
         auto_build=True,
     )
     assert model.learn_profile["build_mode"] == "full"
+
+
+def test_learn_incremental_rebuild_keeps_variant_expansions_on_device(tmp_path):
+    """After a strict-learn iteration that only refreshes frequencies, the
+    device pipeline must see the variant links learn added to indexed
+    entries (their results expand through the object tail), exactly as the
+    oracle does (a learned input that is itself an indexed word gets links).
+    A generated 6,000-entry lexicon keeps the device backend in play (it
+    needs 64+ index rows)."""
+    from analiticcl_jax import datagen
+    from analiticcl_jax.types import DistanceThreshold, SearchParameters
+
+    data = datagen.make_dataset(
+        str(tmp_path), seed=3, n_entries=6000, n_queries=2400, n_lines=1
+    )
+    model = VariantModel(alphabet_file=data["alphabet"])
+    model.read_vocabulary(data["lexicon"], VocabParams())
+    model.build()
+    model.set_backend("device")
+    with open(data["queries"], encoding="utf-8") as f:
+        queries = f.read().split()
+    params = SearchParameters(
+        max_anagram_distance=DistanceThreshold.absolute(3),
+        max_edit_distance=DistanceThreshold.absolute(2),
+        max_matches=3, score_threshold=0.7,
+    )
+    model.find_variants_batch(queries[:8], params)  # device pipeline is live
+    learned = model.learn_variants(
+        queries[:2000], params, strict=True, auto_build=True
+    )
+    assert learned > 0
+    assert model.learn_profile["build_mode"] == "freq_refresh"
+
+    def tuples(res):
+        return [
+            [(model.decoder[r.vocab_id].text, r.dist_score, r.freq_score, r.via)
+             for r in rs]
+            for rs in res
+        ]
+
+    probe = queries
+    got = tuples(model.find_variants_batch(probe, params))
+    model.set_backend("oracle")
+    want = tuples(model.find_variants_batch(probe, params))
+    assert any(r[3] is not None for rs in want for r in rs)
+    assert got == want

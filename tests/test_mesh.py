@@ -5,14 +5,15 @@ import pytest
 
 import jax
 
-from analiticcl_tpu.models.variant_model import VariantModel
-from analiticcl_tpu.types import DistanceThreshold, SearchParameters, Weights
-from analiticcl_tpu.vocab import VocabParams
+from analiticcl_jax.models.variant_model import VariantModel
+from analiticcl_jax.types import DistanceThreshold, SearchParameters, Weights
+from analiticcl_jax.vocab import VocabParams
 
+from analiticcl_jax import datagen
 from fixtures import get_test_alphabet, get_test_searchparams
 
-SIMPLE_ALPHABET = "/root/reference/examples/simple.alphabet.tsv"
-ENG_LEXICON = "/root/reference/examples/eng.aspell.lexicon"
+# an eng.aspell-shaped lexicon of 12k entries, generated from a seed
+ENG_WORDS = datagen.lexicon_words(12_000, seed=6)
 
 
 def _result_tuples(model, results):
@@ -24,15 +25,12 @@ def _result_tuples(model, results):
 
 @pytest.fixture(scope="module")
 def eng_model(tmp_path_factory):
-    words = []
-    with open(ENG_LEXICON, "r", encoding="utf-8") as f:
-        for i, line in enumerate(f):
-            if i % 10 == 0:
-                words.append(line)
-    subset = tmp_path_factory.mktemp("lex") / "eng_subset.tsv"
-    subset.write_text("".join(words))
-    model = VariantModel(alphabet_file=SIMPLE_ALPHABET)
-    model.read_vocabulary(str(subset), VocabParams())
+    d = tmp_path_factory.mktemp("lex")
+    lex = datagen.write_lexicon(
+        str(d / "lexicon.tsv"), ENG_WORDS, datagen.zipf_freqs(len(ENG_WORDS), 6)
+    )
+    model = VariantModel(alphabet_file=datagen.write_alphabet(str(d / "a.tsv")))
+    model.read_vocabulary(lex, VocabParams())
     model.build()
     return model
 
@@ -41,7 +39,8 @@ def test_devices_available():
     assert len(jax.devices()) == 8
 
 
-QUERIES = ["theere", "seperate", "recieve", "apox", "hous", "Amsterdam", "a", "qwrtp"]
+# lexicon words with one edit (they have matches) and two edge cases
+QUERIES = datagen.queries(ENG_WORDS, 6, seed=2, stride=1499) + ["a", "qwrtp"]
 
 
 def test_sharded_matches_oracle_lex_only(eng_model):
@@ -91,8 +90,8 @@ def test_sharded_budget_escalation_and_overflow_split(eng_model, monkeypatch):
     """Tiny pair budgets on the mesh: the pipeline must escalate through the
     buckets and, at the top, split the batch rather than truncate — results
     stay oracle-exact throughout."""
-    from analiticcl_tpu.ops import pipeline as pl_mod
-    from analiticcl_tpu.parallel.mesh import ShardedPipeline, make_mesh
+    from analiticcl_jax.ops import pipeline as pl_mod
+    from analiticcl_jax.parallel.mesh import ShardedPipeline, make_mesh
 
     # the charcount-interleaved shard layout balances per-shard survivor
     # counts, so buckets must be small enough that balanced shards still
@@ -127,8 +126,8 @@ def test_sharded_budget_escalation_and_overflow_split(eng_model, monkeypatch):
 def test_sharded_streaming_and_oversized_batch(eng_model, monkeypatch):
     """Streaming (depth-2) over the mesh and a batch larger than the max
     bucket must both return per-query results identical to one-shot calls."""
-    from analiticcl_tpu.parallel.mesh import ShardedPipeline, make_mesh
-    from analiticcl_tpu.ops import pipeline as pl_mod
+    from analiticcl_jax.parallel.mesh import ShardedPipeline, make_mesh
+    from analiticcl_jax.ops import pipeline as pl_mod
 
     # shrink the bucket ladder: "oversized" should exercise the splitter, not
     # compile a multi-thousand-query CPU program
@@ -156,7 +155,7 @@ def test_sharded_streaming_and_oversized_batch(eng_model, monkeypatch):
         ), q
 
     # oversized batch goes through the same streaming splitter
-    from analiticcl_tpu.ops import pipeline as pl_mod
+    from analiticcl_jax.ops import pipeline as pl_mod
 
     big = queries * ((pl_mod.B_BUCKETS[-1] // len(queries)) + 2)
     got = pipe.find_variants_batch(big, params)

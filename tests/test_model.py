@@ -2,9 +2,9 @@
 
 import pytest
 
-from analiticcl_tpu.models.variant_model import VariantModel
-from analiticcl_tpu.types import DistanceThreshold, VariantReference, Weights
-from analiticcl_tpu.vocab import VocabParams, VocabType
+from analiticcl_jax.models.variant_model import VariantModel
+from analiticcl_jax.types import DistanceThreshold, VariantReference, Weights
+from analiticcl_jax.vocab import VocabParams, VocabType
 
 from fixtures import get_test_alphabet, get_test_searchparams
 
@@ -183,7 +183,7 @@ def test_max_matches_crop():
 
 
 def test_stop_at_exact_match():
-    from analiticcl_tpu.types import StopCriterion
+    from analiticcl_jax.types import StopCriterion
     import dataclasses
 
     model = build_model()
@@ -203,9 +203,9 @@ def test_native_confusables_parity():
 
     import pytest
 
-    from analiticcl_tpu.confusables import Confusable
-    from analiticcl_tpu.editscript import shortest_edit_script
-    from analiticcl_tpu.utils import native
+    from analiticcl_jax.confusables import Confusable
+    from analiticcl_jax.editscript import shortest_edit_script
+    from analiticcl_jax.utils import native
 
     if not native.available():
         pytest.skip("native library unavailable")

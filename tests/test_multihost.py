@@ -32,7 +32,7 @@ def _free_port():
     ),
 )
 def test_dcn_initialize_single_process():
-    from analiticcl_tpu.parallel.mesh import initialize_distributed
+    from analiticcl_jax.parallel.mesh import initialize_distributed
 
     port = _free_port()
     initialize_distributed(
@@ -44,10 +44,10 @@ def test_dcn_initialize_single_process():
     assert jax.process_index() == 0
 
     # the mesh path works under the distributed runtime
-    from analiticcl_tpu.models.variant_model import VariantModel
-    from analiticcl_tpu.parallel.mesh import make_mesh
-    from analiticcl_tpu.types import SearchParameters, Weights
-    from analiticcl_tpu.vocab import VocabParams
+    from analiticcl_jax.models.variant_model import VariantModel
+    from analiticcl_jax.parallel.mesh import make_mesh
+    from analiticcl_jax.types import SearchParameters, Weights
+    from analiticcl_jax.vocab import VocabParams
 
     from fixtures import TEST_ALPHABET, get_test_searchparams
 
@@ -67,7 +67,7 @@ def test_initialize_distributed_signature():
     (the production entry point for multi-host DCN runs)."""
     import inspect
 
-    from analiticcl_tpu.parallel import mesh
+    from analiticcl_jax.parallel import mesh
 
     sig = inspect.signature(jax.distributed.initialize)
     assert "coordinator_address" in sig.parameters

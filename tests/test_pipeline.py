@@ -7,16 +7,25 @@ import pytest
 
 import jax.numpy as jnp
 
-from analiticcl_tpu.models.variant_model import VariantModel
-from analiticcl_tpu.ops import distance as oracle
-from analiticcl_tpu.ops.dl_jax import PAD_A, PAD_B, dl_metrics_batch
-from analiticcl_tpu.types import DistanceThreshold, SearchParameters, Weights
-from analiticcl_tpu.vocab import VocabParams
+from analiticcl_jax.models.variant_model import VariantModel
+from analiticcl_jax.ops import distance as oracle
+from analiticcl_jax.ops.dl_jax import PAD_A, PAD_B, dl_metrics_batch
+from analiticcl_jax.types import DistanceThreshold, SearchParameters, Weights
+from analiticcl_jax.vocab import VocabParams
 
+from analiticcl_jax import datagen
 from fixtures import get_test_alphabet, get_test_searchparams
 
-ENG_LEXICON = "/root/reference/examples/eng.aspell.lexicon"
-SIMPLE_ALPHABET = "/root/reference/examples/simple.alphabet.tsv"
+# an eng.aspell-shaped lexicon of 25k entries, generated from a seed
+ENG_WORDS = datagen.lexicon_words(25_000, seed=5)
+
+
+def _write_lexicon(path, words):
+    """alphabet + lexicon files for ``words``; returns the alphabet path."""
+    datagen.write_lexicon(
+        str(path / "lexicon.tsv"), words, datagen.zipf_freqs(len(words), 5)
+    )
+    return datagen.write_alphabet(str(path / "alphabet.tsv"))
 
 
 def test_dl_kernel_parity_random():
@@ -61,22 +70,18 @@ def _result_tuples(model, results):
 
 @pytest.fixture(scope="module")
 def eng_model(tmp_path_factory):
-    # a 25k-word slice of the real lexicon keeps CPU CI fast while still
-    # exercising the full retrieval + scoring stack at realistic scale
-    words = []
-    with open(ENG_LEXICON, "r", encoding="utf-8") as f:
-        for i, line in enumerate(f):
-            if i % 5 == 0:
-                words.append(line)
-    subset = tmp_path_factory.mktemp("lex") / "eng_subset.tsv"
-    subset.write_text("".join(words))
-    model = VariantModel(alphabet_file=SIMPLE_ALPHABET)
-    model.read_vocabulary(str(subset), VocabParams())
+    # 25k entries keep CPU CI fast while still exercising the full
+    # retrieval + scoring stack at realistic scale
+    d = tmp_path_factory.mktemp("lex")
+    model = VariantModel(alphabet_file=_write_lexicon(d, ENG_WORDS))
+    model.read_vocabulary(str(d / "lexicon.tsv"), VocabParams())
     model.build()
     return model
 
 
-QUERIES = [
+# edge cases (lengths, case, nothing in reach) plus lexicon words with one
+# edit, which have matches
+QUERIES = datagen.queries(ENG_WORDS, 8, seed=1, stride=997) + [
     "theere",
     "seperate",
     "recieve",
@@ -143,7 +148,7 @@ def test_device_oracle_parity_small_model():
 def test_device_stop_at_exact(eng_model):
     import dataclasses
 
-    from analiticcl_tpu.types import StopCriterion
+    from analiticcl_jax.types import StopCriterion
 
     params = dataclasses.replace(
         SearchParameters(
@@ -152,10 +157,11 @@ def test_device_stop_at_exact(eng_model):
         ),
         stop_criterion=StopCriterion.STOP_AT_EXACT_MATCH,
     )
+    word = ENG_WORDS[100]  # an exact anagram hit exists
     eng_model.set_backend("oracle")
-    want = eng_model.find_variants("there", params)
+    want = eng_model.find_variants(word, params)
     eng_model.set_backend("device")
-    got = eng_model.find_variants_batch(["there"], params)[0]
+    got = eng_model.find_variants_batch([word], params)[0]
     assert _result_tuples(eng_model, got) == _result_tuples(eng_model, want)
 
 
@@ -246,9 +252,9 @@ def test_rank_fast_batch_equals_rank_fast():
 
     import numpy as np
 
-    from analiticcl_tpu.ops.pipeline import _rank_fast
-    from analiticcl_tpu.ops.rank_batch import rank_fast_batch
-    from analiticcl_tpu.types import SearchParameters
+    from analiticcl_jax.ops.pipeline import _rank_fast
+    from analiticcl_jax.ops.rank_batch import rank_fast_batch
+    from analiticcl_jax.types import SearchParameters
 
     rng = random.Random(7)
     fake_model = pytypes.SimpleNamespace(have_freq=True)
@@ -295,21 +301,14 @@ def test_pair_budget_overflow_splits_not_truncates(monkeypatch, tmp_path):
     """When totals exceed the top pair budgets the batch must be recomputed
     (split / oracle), never truncated query-major: every query keeps its full
     candidate set (reference guarantee, lib.rs:1143-1308)."""
-    from analiticcl_tpu.ops import pipeline as pl_mod
+    from analiticcl_jax.ops import pipeline as pl_mod
 
     # tiny top buckets force overflow on a normal workload
     monkeypatch.setattr(pl_mod, "P_BUCKETS", (32, 64))
     monkeypatch.setattr(pl_mod, "P2_BUCKETS", (16, 32))
 
-    words = []
-    with open(ENG_LEXICON, "r", encoding="utf-8") as f:
-        for i, line in enumerate(f):
-            if i % 40 == 0:
-                words.append(line)
-    subset = tmp_path / "eng_tiny.tsv"
-    subset.write_text("".join(words))
-    model = VariantModel(alphabet_file=SIMPLE_ALPHABET)
-    model.read_vocabulary(str(subset), VocabParams())
+    model = VariantModel(alphabet_file=_write_lexicon(tmp_path, ENG_WORDS[::8]))
+    model.read_vocabulary(str(tmp_path / "lexicon.tsv"), VocabParams())
     model.build()
 
     params = SearchParameters(
@@ -334,7 +333,7 @@ def test_searchsorted_radix_matches_numpy():
     import numpy as np
     import jax.numpy as jnp
 
-    from analiticcl_tpu.ops.pipeline import _searchsorted_radix
+    from analiticcl_jax.ops.pipeline import _searchsorted_radix
 
     rng = np.random.default_rng(5)
     for n in (1, 7, 63, 64, 65, 700, 4096, 5000, 70000):
@@ -350,8 +349,8 @@ def test_searchsorted_radix_matches_numpy():
 def test_native_rank_tail_equals_numpy_tail(eng_model):
     """The C++ one-call ranking tail (ananorm_rank_tail) vs the numpy
     rank_fast_batch path, bit-equal on the same device batches."""
-    import analiticcl_tpu.ops.pipeline as pl
-    from analiticcl_tpu.utils import native as _native
+    import analiticcl_jax.ops.pipeline as pl
+    from analiticcl_jax.utils import native as _native
 
     if not _native.available():
         import pytest as _pytest
@@ -418,8 +417,8 @@ def test_budget_deescalation(eng_model, monkeypatch):
     of small batches (kernel time scales with the static P budget: a
     1,572,864 hint vs the ~390k a workload needs measured 3x slower), and
     results must stay oracle-exact through the recompile."""
-    from analiticcl_tpu.ops import pipeline as pl_mod
-    from analiticcl_tpu.ops.pipeline import get_device_pipeline
+    from analiticcl_jax.ops import pipeline as pl_mod
+    from analiticcl_jax.ops.pipeline import get_device_pipeline
 
     # a short ladder keeps the top-bucket CPU compile cheap (the real
     # ladder's 1.5M-pair top bucket compiles for minutes on CPU)
@@ -463,8 +462,8 @@ def test_fastemit_matches_python_bulk_construction():
     including empty segments and a zero-survivor batch."""
     import numpy as np
 
-    from analiticcl_tpu.types import VariantResult
-    from analiticcl_tpu.utils.native import fastemit_build_result_lists
+    from analiticcl_jax.types import VariantResult
+    from analiticcl_jax.utils.native import fastemit_build_result_lists
 
     femit = fastemit_build_result_lists()
     if femit is None:
@@ -518,7 +517,7 @@ def test_window_split_ratio_thresholds(eng_model):
     # the split actually happened: k_ed spans more than one window bucket
     import numpy as np
 
-    from analiticcl_tpu.ops.pipeline import WINDOW_BUCKETS, _bucket
+    from analiticcl_jax.ops.pipeline import WINDOW_BUCKETS, _bucket
 
     k_eds = {
         _bucket(min(len(q) * 3 // 10, 12), WINDOW_BUCKETS) for q in queries
@@ -531,7 +530,7 @@ def test_wide_radix_block_descent(eng_model, monkeypatch, gs):
     """The adaptive block-descent radix (GS=64/128 for >=1024-block bands,
     pipeline._radix_gs) must stay bit-identical to the oracle; CPU fixtures
     have small bands, so force the wide radix."""
-    import analiticcl_tpu.ops.pipeline as plmod
+    import analiticcl_jax.ops.pipeline as plmod
 
     monkeypatch.setattr(plmod, "_radix_gs", lambda m: gs)
     params = SearchParameters(

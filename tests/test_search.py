@@ -4,10 +4,10 @@ import dataclasses
 
 import pytest
 
-from analiticcl_tpu.models.variant_model import VariantModel
-from analiticcl_tpu.search import find_boundaries, find_match_ngrams
-from analiticcl_tpu.types import Weights
-from analiticcl_tpu.vocab import VocabParams, VocabType
+from analiticcl_jax.models.variant_model import VariantModel
+from analiticcl_jax.search import find_boundaries, find_match_ngrams
+from analiticcl_jax.types import Weights
+from analiticcl_jax.vocab import VocabParams, VocabType
 
 from fixtures import get_test_alphabet, get_test_searchparams
 
@@ -298,15 +298,15 @@ def test_lm_score_tokens_batch_matches_scalar():
     """Vectorized LM scoring must be bit-equal to the scalar path."""
     import random
 
-    from analiticcl_tpu.vocab import BOS, EOS
+    from analiticcl_jax.vocab import BOS, EOS
 
     model = _lm_model() if "_lm_model" in dir() else None
     if model is None:
         # build a small LM-bearing model inline
         from fixtures import get_test_alphabet
-        from analiticcl_tpu.models.variant_model import VariantModel
-        from analiticcl_tpu.types import Weights
-        from analiticcl_tpu.vocab import VocabParams, VocabType
+        from analiticcl_jax.models.variant_model import VariantModel
+        from analiticcl_jax.types import Weights
+        from analiticcl_jax.vocab import VocabParams, VocabType
 
         alphabet, _ = get_test_alphabet()
         model = VariantModel.new_with_alphabet(alphabet, Weights(), 0)
@@ -422,7 +422,7 @@ def test_find_boundaries_ascii_fast_path_equivalence():
     generic path must be taken for non-ASCII)."""
     import random as _random
 
-    from analiticcl_tpu.search import _find_boundaries_generic
+    from analiticcl_jax.search import _find_boundaries_generic
 
     rng = _random.Random(11)
     chars = "abcXYZ .,-'_!?\n\t0123456789\"();:"
@@ -560,8 +560,8 @@ def test_native_segmentation_equals_python():
 
     import numpy as np
 
-    from analiticcl_tpu.models import search_fast
-    from analiticcl_tpu.utils import native as _native
+    from analiticcl_jax.models import search_fast
+    from analiticcl_jax.utils import native as _native
 
     if not _native.available():
         import pytest as _pytest
@@ -681,7 +681,7 @@ def test_fast_consolidation_lm_equals_object_path():
             for out in outs
         ]
 
-    from analiticcl_tpu.models import search_fast
+    from analiticcl_jax.models import search_fast
 
     for max_seq, fw, uoff in [(250, 0.0, False), (3, 0.0, False),
                               (50, 1.0, True), (1, 0.0, False)]:

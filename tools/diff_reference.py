@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Byte-diff harness: reference Rust CLI vs analiticcl-tpu CLI.
+"""Byte-diff harness: reference Rust CLI vs analiticcl-jax CLI.
 
 Runs both binaries over the same corpora across query / search / learn with a
 matrix of flag combinations and byte-diffs stdout, reporting any unexplained
@@ -117,7 +117,7 @@ def main() -> int:
 
     failures = 0
     for name, sub, args, stdin_text in SCENARIOS:
-        ours = run([sys.executable, "-m", "analiticcl_tpu.cli", sub, *args], stdin_text)
+        ours = run([sys.executable, "-m", "analiticcl_jax.cli", sub, *args], stdin_text)
         ref = run([ref_bin, sub, *args], stdin_text)
         if ours == ref:
             print(f"OK   {name}: byte-identical "

@@ -28,7 +28,7 @@ from cli_golden_cases import (  # noqa: E402
 
 
 def main():
-    from analiticcl_tpu.cli import main as cli_main
+    from analiticcl_jax.cli import main as cli_main
 
     os.makedirs(FIXDIR, exist_ok=True)
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
-"""Roofline for the fused query program: how far is q/s from the chip ceiling?
+"""Roofline for the fused query program: how far is q/s from the card's ceiling?
 
-Answers VERDICT r3 weak #5 ("query's ceiling is unknown") three ways:
+Three views of one production fused call on the eng-scale generated
+lexicon (analiticcl_jax.datagen):
 
 1. XLA's own cost model for the compiled fused program
-   (``compiled.cost_analysis()``: flops + bytes accessed) — on the TPU
-   backend the Pallas stage-A kernel is an opaque custom call to XLA, so
-   these totals cover stages B+ only; on CPU they cover the whole XLA twin.
-2. An ANALYTIC stage-A model from the actual banded shapes (the stage XLA
-   can't see): int8 MACs and HBM bytes of the banded binarized matmul.
-3. If a real TPU is attached: measured warm ms/batch vs the analytic floor.
+   (``compiled.cost_analysis()``: flops + bytes accessed). The Triton
+   kernels are opaque custom calls to XLA, so on the GPU these totals cover
+   only the XLA parts.
+2. An ANALYTIC model from the actual banded shapes: stage A's int8 MACs
+   and device-memory bytes, stage B's pair gathers and DP cell operations.
+3. Measured warm ms/batch on the card vs the analytic floor.
 
-Peaks used (TPU v5e, single chip): 394 TOPS int8 / 197 TFLOPS bf16 MXU,
-819 GB/s HBM. The bound for this program is whichever floor is larger.
+Peaks come from ``PEAKS``, keyed by ``device_kind``; a device that is not
+in the table is an error.
 
-    python tools/roofline.py [--batch 4096] [--no-measure]
+    python tools/roofline.py [--batch 4096]
 """
 
 from __future__ import annotations
@@ -29,9 +30,25 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-PEAK_INT8 = 394e12  # MACs*2 per second (v5e MXU, int8)
-PEAK_BF16 = 197e12
-PEAK_HBM = 819e9  # bytes/s
+# Published dense peaks per device kind. H100 SXM: NVIDIA's data sheet
+# (1,979 TOP/s int8 tensor, 67 TFLOP/s fp32 outside the tensor cores, which
+# stands in for the DP's int32 vector work, 3.35 TB/s HBM3). They assume the
+# card's full 700 W power limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "int8": 1979e12, "vector": 67e12, "hbm": 3.35e12,
+        "source": "NVIDIA H100 SXM data sheet",
+    },
+}
+
+
+def peaks_for(device_kind: str) -> dict:
+    if device_kind not in PEAKS:
+        raise SystemExit(
+            f"no published peaks for device kind {device_kind!r}; add it to "
+            "PEAKS in tools/roofline.py"
+        )
+    return PEAKS[device_kind]
 
 
 def log(*a):
@@ -41,22 +58,24 @@ def log(*a):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=4096)
-    ap.add_argument("--no-measure", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+
+    import tempfile
 
     import jax
 
-    from analiticcl_tpu.models.variant_model import VariantModel
-    from analiticcl_tpu.ops import pipeline as pl_mod
-    from analiticcl_tpu.types import DistanceThreshold, SearchParameters
-    from analiticcl_tpu.vocab import VocabParams
+    from analiticcl_jax import datagen
+    from analiticcl_jax.models.variant_model import VariantModel
+    from analiticcl_jax.ops import pipeline as pl_mod
+    from analiticcl_jax.types import DistanceThreshold, SearchParameters
+    from analiticcl_jax.vocab import VocabParams
 
-    model = VariantModel(
-        alphabet_file="/root/reference/examples/simple.alphabet.tsv"
-    )
-    model.read_vocabulary(
-        "/root/reference/examples/eng.aspell.lexicon", VocabParams()
-    )
+    dev = jax.devices()[0]
+    peak = peaks_for(dev.device_kind)
+    data = datagen.make_dataset(tempfile.mkdtemp(), seed=args.seed)
+    model = VariantModel(alphabet_file=data["alphabet"])
+    model.read_vocabulary(data["lexicon"], VocabParams())
     model.build()
     model.set_backend("device")
 
@@ -81,7 +100,7 @@ def main():
             return word[:i] + "x" + word[i:]
         return word[:i] + "q" + word[i + 1:]
 
-    from analiticcl_tpu.ops.pipeline import get_device_pipeline
+    from analiticcl_jax.ops.pipeline import get_device_pipeline
 
     pipe = get_device_pipeline(model)
     B = min(args.batch, pipe.max_B)
@@ -118,9 +137,9 @@ def main():
     nb_band = kw["nb_band"]
     P, P2, window = kw["P"], kw["P2"], kw["window"]
     Ni_band = nb_band * 1024
-    from analiticcl_tpu.ops.stage_a import B_TILE
+    from analiticcl_jax.ops.stage_a import _b_tile
 
-    ntiles = -(-B // B_TILE)
+    ntiles = B // _b_tile(B, pipe.Ni_pad)
     log(
         f"captured fused call: B={B} Ni={pipe.Ni} (pad {pipe.Ni_pad}) "
         f"A*T={A * T} L={L} band={nb_band} blocks ({Ni_band} rows/tile) "
@@ -139,30 +158,32 @@ def main():
     log(
         f"XLA cost model ({backend} program): {xla_flops / 1e9:.2f} GFLOP, "
         f"{xla_bytes / 1e9:.3f} GB accessed"
-        + (" [stage A opaque: Pallas custom call]" if backend != "cpu" else "")
+        + (" [Triton kernels opaque: custom calls]" if backend != "cpu" else "")
     )
 
-    # ---- 2. analytic stage-A model (the part XLA can't see on TPU) ----
-    # binarized matmul: per tile, [B_TILE, A*T] int8 x [A*T, Ni_band] int8,
-    # plus the L1 residual compare/popcount passes (~3 vector ops per cell)
+    # ---- 2. analytic model (the parts XLA can't see on the GPU) ----
+    # binarized matmul: per tile, [bt, A*T] int8 x [A*T, Ni_band] int8,
+    # plus the L1 residual compare/pack passes (~3 vector ops per cell)
     macs_a = B * Ni_band * (A * T)
     flops_a = 2 * macs_a
     cell_ops = 3 * B * Ni_band  # compare + accumulate per mask cell
     bytes_bins = ntiles * Ni_band * (A * T)  # int8 band stream per tile
     bytes_masks = 2 * B * Ni_band / 8  # packed hit+exact masks out
-    t_a_mxu = flops_a / PEAK_INT8 + cell_ops / PEAK_BF16
-    t_a_hbm = (bytes_bins + bytes_masks) / PEAK_HBM
+    t_a_mxu = flops_a / peak["int8"] + cell_ops / peak["vector"]
+    t_a_hbm = (bytes_bins + bytes_masks) / peak["hbm"]
 
     # stage B: P pair norm gathers ([2L] int8 each) + banded DL over window
     dt = 1 if pipe._norm_dtype == np.int8 else 4
     bytes_b = P * 2 * L * dt + P * 32
     flops_b = P * L * (2 * window + 1) * 8  # DP cell ops, vector units
-    t_b_hbm = bytes_b / PEAK_HBM
-    t_b_vec = flops_b / PEAK_BF16
+    t_b_hbm = bytes_b / peak["hbm"]
+    t_b_vec = flops_b / peak["vector"]
 
     t_floor = max(t_a_mxu, t_a_hbm) + max(t_b_hbm, t_b_vec)
     record = {
         "metric": "roofline_fused_query",
+        "device_kind": dev.device_kind,
+        "peaks": peak,
         "B": B,
         "Ni": pipe.Ni,
         "nb_band": nb_band,
@@ -181,7 +202,7 @@ def main():
         "stage_b_vec_floor_ms": round(t_b_vec * 1e3, 4),
         "ceiling_qps": round(B / t_floor, 1),
     }
-    print("--- analytic roofline (v5e) ---")
+    print(f"--- analytic roofline ({dev.device_kind}, {peak['source']}) ---")
     print(
         "(floor is optimistic: the pair-compaction binary search, random "
         "norm gathers (latency- not bandwidth-bound) and the ~L-step "
@@ -189,7 +210,7 @@ def main():
         "exactly that structural gap)"
     )
     print(
-        f"stage A: {flops_a / 1e9:.2f} G int8-op -> {t_a_mxu * 1e3:.3f} ms MXU floor; "
+        f"stage A: {flops_a / 1e9:.2f} G int8-op -> {t_a_mxu * 1e3:.3f} ms compute floor; "
         f"{(bytes_bins + bytes_masks) / 1e6:.1f} MB -> {t_a_hbm * 1e3:.3f} ms HBM floor"
     )
     print(
@@ -201,27 +222,6 @@ def main():
         f"=> ceiling ~= {B / t_floor:,.0f} q/s (B={B})"
     )
 
-    def write_record():
-        """Stamped JSON artifact (benchmarks/ROOFLINE.json): the roofline
-        number on file, tied to a commit (VERDICT r4 weak #7)."""
-        import json
-
-        from analiticcl_tpu.utils.provenance import stamp
-
-        path = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "benchmarks", "ROOFLINE.json",
-        )
-        with open(path, "w", encoding="utf-8") as f:
-            json.dump(stamp(record), f, indent=1)
-            f.write("\n")
-        log(f"wrote {path}")
-
-    # ---- 3. measured (real TPU only) ----
-    if args.no_measure or backend == "cpu":
-        print("measured: skipped (CPU backend or --no-measure)")
-        write_record()
-        return
     for _ in range(2):  # warm
         jax.block_until_ready(orig(*a, **kw))
     times = []
@@ -244,7 +244,9 @@ def main():
     }
     record["device_only_qps"] = round(B / med, 1)
     record["pct_of_analytic_floor"] = round(100 * t_floor / med, 1)
-    write_record()
+    import json
+
+    print(json.dumps(record))
 
 
 if __name__ == "__main__":

@@ -37,17 +37,18 @@ def main():
     ap.add_argument("--skip-search", action="store_true")
     args = ap.parse_args()
 
-    from analiticcl_tpu.models.variant_model import VariantModel
-    from analiticcl_tpu.types import DistanceThreshold, SearchParameters
-    from analiticcl_tpu.utils.gc_tuning import freeze_model_heap
-    from analiticcl_tpu.vocab import VocabParams
+    from analiticcl_jax.models.variant_model import VariantModel
+    from analiticcl_jax.types import DistanceThreshold, SearchParameters
+    from analiticcl_jax.utils.gc_tuning import freeze_model_heap
+    from analiticcl_jax.vocab import VocabParams
 
-    model = VariantModel(
-        alphabet_file="/root/reference/examples/simple.alphabet.tsv"
-    )
-    model.read_vocabulary(
-        "/root/reference/examples/eng.aspell.lexicon", VocabParams()
-    )
+    import tempfile
+
+    from analiticcl_jax import datagen
+
+    data = datagen.make_dataset(tempfile.mkdtemp(), seed=0)
+    model = VariantModel(alphabet_file=data["alphabet"])
+    model.read_vocabulary(data["lexicon"], VocabParams())
     model.build()
     model.set_backend("device")
     freeze_model_heap()
