@@ -128,12 +128,9 @@ def _dl_kernel(aT_ref, bT_ref, al_ref, bl_ref, ld_ref, lcs_ref, *, L, W):
     lcs_ref[...] = lcs_best
 
 
-@functools.partial(
-    jax.jit, static_argnames=("max_len", "window", "interpret", "num_warps")
-)
+@functools.partial(jax.jit, static_argnames=("max_len", "window", "interpret"))
 def dl_lcs_triton(
-    a, a_len, b, b_len, max_len: int, window: int, interpret: bool = False,
-    num_warps: int = 4,
+    a, a_len, b, b_len, max_len: int, window: int, interpret: bool = False
 ):
     """(ld, lcs) int32 [P] for PAD_A/PAD_B-padded int pairs a, b [P, L]."""
     P, L = a.shape
@@ -162,7 +159,7 @@ def dl_lcs_triton(
             jax.ShapeDtypeStruct((Pp,), jnp.int32),
         ],
         backend="triton",
-        compiler_params=plt.CompilerParams(num_warps=num_warps, num_stages=1),
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
         name=f"dl_lcs_w{W}",
     )(aT, bT, al, bl)

@@ -90,28 +90,28 @@ def _stage_a_kernel(
     k_len_ref,  # [bq] int32: min(k_ana, k_ed) — the length-difference cap
     bins_ref,  # [Ni, ATp] int8 (whole array; the program slices its band)
     cc_ref,  # [Ni] int32 (whole array)
-    packed_ref,  # [bq, rbk/8] uint8
-    exact_ref,  # [bq, rbk/8] uint8
-    counts_ref,  # [bq, rbk/128] int32
-    *, bq: int, bt: int, nqt: int, at_pad: int, rbk: int, kb: int,
+    packed_ref,  # [bq, RBK/8] uint8
+    exact_ref,  # [bq, RBK/8] uint8
+    counts_ref,  # [bq, RBK/128] int32
+    *, bq: int, bt: int, nqt: int, at_pad: int,
 ):
     j = pl.program_id(0)  # query tile
-    i = pl.program_id(1)  # rbk-row block within the band
+    i = pl.program_id(1)  # RBK-row block within the band
     start = start_ref[jnp.minimum(j * bq // bt, nqt - 1)]
-    r0 = pl.multiple_of(start * ROW_BLOCK + i * rbk, rbk)
-    rows = pl.ds(r0, rbk)
+    r0 = pl.multiple_of(start * ROW_BLOCK + i * RBK, RBK)
+    rows = pl.ds(r0, RBK)
     qrows = pl.ds(pl.multiple_of(j * bq, bq), bq)
-    acc = jnp.zeros((bq, rbk), jnp.int32)
-    for k0 in range(0, at_pad, kb):  # static: A*T is a few hundred columns
+    acc = jnp.zeros((bq, RBK), jnp.int32)
+    for k0 in range(0, at_pad, KB):  # static: A*T is a few hundred columns
         acc += jax.lax.dot_general(
-            qbin_ref[qrows, pl.ds(k0, kb)],
-            bins_ref[rows, pl.ds(k0, kb)],
+            qbin_ref[qrows, pl.ds(k0, KB)],
+            bins_ref[rows, pl.ds(k0, KB)],
             (((1,), (1,)), ((), ())),
             preferred_element_type=jnp.int32,
         )
     cc = cc_ref[rows]
     q_cc = q_cc_ref[...]
-    l1 = cc[None, :] + q_cc[:, None] - 2 * acc  # [bq, rbk], never in HBM
+    l1 = cc[None, :] + q_cc[:, None] - 2 * acc  # [bq, RBK], never in HBM
     # |charcount difference| = |norm length difference| <= DL, so rows past
     # the per-query edit threshold can never survive stage B's ld <= k_ed
     # filter (lib.rs:1350-1378)
@@ -123,22 +123,20 @@ def _stage_a_kernel(
     weights = jnp.left_shift(1, jnp.arange(8, dtype=jnp.int32))
 
     def pack(m):
-        m8 = m.astype(jnp.int32).reshape(bq, rbk // 8, 8)
+        m8 = m.astype(jnp.int32).reshape(bq, RBK // 8, 8)
         return jnp.sum(m8 * weights[None, None, :], axis=2).astype(jnp.uint8)
 
     packed_ref[...] = pack(mask)
     exact_ref[...] = pack(exact)
     counts_ref[...] = jnp.sum(
-        mask.astype(jnp.int32).reshape(bq, rbk // 128, 128), axis=2
+        mask.astype(jnp.int32).reshape(bq, RBK // 128, 128), axis=2
     )
 
 
-@functools.partial(
-    jax.jit, static_argnames=("nb_band", "interpret", "tiles")
-)
+@functools.partial(jax.jit, static_argnames=("nb_band", "interpret"))
 def stage_a_masks_triton(
     bins, cc, qbin, q_cc, k_ana, k_len, start_blk, nb_band: int,
-    interpret: bool = False, tiles=(BQ, RBK, KB, NUM_WARPS),
+    interpret: bool = False,
 ):
     """Banded stage A as one Pallas kernel through Triton.
 
@@ -147,9 +145,8 @@ def stage_a_masks_triton(
     [B // bt] int32 with (start + nb_band) * ROW_BLOCK <= Ni. Padded lexicon
     rows must carry a huge cc so they never match. One program per (BQ query
     tile, RBK band rows): each loads its own band start, so programs share
-    nothing and run in any order. ``tiles`` = (BQ, RBK, KB, NUM_WARPS)
-    for tuning (tools/kernel_vs_xla.py). ``interpret=True`` runs the kernel
-    in the Pallas interpreter (CPU tests)."""
+    nothing and run in any order. ``interpret=True`` runs the kernel in the
+    Pallas interpreter (CPU tests)."""
     Ni, at_pad = bins.shape
     B = qbin.shape[0]
     assert at_pad % KB == 0 and qbin.shape[1] == at_pad, (at_pad, qbin.shape)
@@ -159,9 +156,7 @@ def stage_a_masks_triton(
     assert start_blk.shape == (nqt,)
     # a program's queries must share one band tile; Triton's dot wants >= 16
     # rows, so the 8-query bucket is padded (padding rows match nothing)
-    bq_max, rbk, kb, num_warps = tiles
-    assert at_pad % kb == 0
-    bq = max(16, min(bq_max, bt))
+    bq = max(16, min(BQ, bt))
     Bp = -(-B // bq) * bq
     if Bp != B:
         qbin = jnp.pad(qbin, ((0, Bp - B), (0, 0)))
@@ -171,12 +166,11 @@ def stage_a_masks_triton(
     Nb = nb_band * ROW_BLOCK
     qspec = pl.BlockSpec((bq,), lambda j, i: (j,))
     kernel = functools.partial(
-        _stage_a_kernel, bq=bq, bt=bt, nqt=nqt, at_pad=at_pad, rbk=rbk,
-        kb=kb,
+        _stage_a_kernel, bq=bq, bt=bt, nqt=nqt, at_pad=at_pad
     )
     packed_q, exact_q, counts_q = pl.pallas_call(
         kernel,
-        grid=(Bp // bq, Nb // rbk),
+        grid=(Bp // bq, Nb // RBK),
         in_specs=[
             pl.BlockSpec(),
             pl.BlockSpec(),
@@ -187,9 +181,9 @@ def stage_a_masks_triton(
             pl.BlockSpec(),
         ],
         out_specs=[
-            pl.BlockSpec((bq, rbk // 8), lambda j, i: (j, i)),
-            pl.BlockSpec((bq, rbk // 8), lambda j, i: (j, i)),
-            pl.BlockSpec((bq, rbk // 128), lambda j, i: (j, i)),
+            pl.BlockSpec((bq, RBK // 8), lambda j, i: (j, i)),
+            pl.BlockSpec((bq, RBK // 8), lambda j, i: (j, i)),
+            pl.BlockSpec((bq, RBK // 128), lambda j, i: (j, i)),
         ],
         out_shape=[
             jax.ShapeDtypeStruct((Bp, Nb // 8), jnp.uint8),
@@ -197,7 +191,7 @@ def stage_a_masks_triton(
             jax.ShapeDtypeStruct((Bp, Nb // 128), jnp.int32),
         ],
         backend="triton",
-        compiler_params=plt.CompilerParams(num_warps=num_warps, num_stages=2),
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS, num_stages=2),
         interpret=interpret,
         name="stage_a_masks",
     )(start_blk.astype(jnp.int32), qbin, q_cc, k_ana, k_len, bins, cc)

@@ -1,75 +1,15 @@
-"""analiticcl-tpu: a TPU-native approximate string matching engine.
+"""Former import name of :mod:`analiticcl_jax`, kept so that existing imports
+keep working: this package and each of its submodules are the very module
+objects of ``analiticcl_jax`` (``<old name>.cli is analiticcl_jax.cli``)."""
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
-proycon/analiticcl (lexicon-backed fuzzy matching for spelling correction and
-text normalisation): anagram-based candidate retrieval, weighted
-Damerau-Levenshtein/LCS/prefix/suffix scoring, frequency ranking, confusable
-rescoring, variant/error lists, running-text search with n-gram language
-models and context rules, and corpus-driven variant learning.
+import importlib
+import pkgutil
+import sys
 
-Architecture (TPU-first, not a port):
-  * anagram values are dense character-count vectors; candidate retrieval is a
-    batched L1-ball query over the whole lexicon (VPU/MXU), replacing the
-    reference's bigint deletion BFS + hash probes
-  * candidate scoring is a batched anti-diagonal DP (Pallas kernel on TPU)
-    over length-bucketed padded pairs, fused with the weighted score + top-k
-  * the lexicon index shards across a device mesh for million-entry lexicons
-"""
+import analiticcl_jax
 
-from .types import (
-    Distance,
-    DistanceThreshold,
-    SearchParameters,
-    StopCriterion,
-    VariantReference,
-    VariantResult,
-    VocabId,
-    Weights,
-    PRIMES,
-)
-from .vocab import (
-    BOS,
-    EOS,
-    UNK,
-    FrequencyHandling,
-    VocabParams,
-    VocabType,
-    VocabValue,
-)
-from .alphabet import Alphabet, AlphabetEncoder, read_alphabet_file
-from . import anahash
-
-__version__ = "0.1.0"
-
-__all__ = [
-    "Alphabet",
-    "AlphabetEncoder",
-    "BOS",
-    "Distance",
-    "DistanceThreshold",
-    "EOS",
-    "FrequencyHandling",
-    "PRIMES",
-    "SearchParameters",
-    "StopCriterion",
-    "UNK",
-    "VariantReference",
-    "VariantResult",
-    "VocabId",
-    "VocabParams",
-    "VocabType",
-    "VocabValue",
-    "Weights",
-    "anahash",
-    "read_alphabet_file",
-]
-
-
-def __getattr__(name):
-    # Lazy import of the model (pulls in JAX) so that light-weight uses of the
-    # algebra don't pay the JAX import cost.
-    if name == "VariantModel":
-        from .models.variant_model import VariantModel
-
-        return VariantModel
-    raise AttributeError(f"module 'analiticcl_tpu' has no attribute {name!r}")
+for _m in pkgutil.walk_packages(analiticcl_jax.__path__, "analiticcl_jax."):
+    sys.modules[__name__ + _m.name[len("analiticcl_jax"):]] = (
+        importlib.import_module(_m.name)
+    )
+sys.modules[__name__] = analiticcl_jax

@@ -241,3 +241,18 @@ def test_search_mode_backend_parity_fuzz():
         model.set_backend("device")
         got = snap(model, model.find_all_matches(text, params))
         assert got == want, (seed, text)
+
+
+def test_former_package_name_is_an_alias():
+    """The package's former import name resolves to the same module objects,
+    so code written against it keeps working."""
+    import analiticcl_jax
+    import analiticcl_jax.cli
+    import analiticcl_jax.models.variant_model as vm
+    import analiticcl_tpu
+    import analiticcl_tpu.cli
+    from analiticcl_tpu.models.variant_model import VariantModel as Old
+
+    assert analiticcl_tpu is analiticcl_jax
+    assert analiticcl_tpu.cli is analiticcl_jax.cli
+    assert Old is vm.VariantModel

@@ -164,3 +164,47 @@ def test_sharded_streaming_and_oversized_batch(eng_model, monkeypatch):
         assert _result_tuples(eng_model, got[i]) == _result_tuples(
             eng_model, want[i % len(QUERIES)]
         )
+
+
+def test_sharded_learn_incremental_rebuild_keeps_variant_expansions(tmp_path):
+    """Sharded twin of the one-card learn test: after a strict-learn
+    iteration that only refreshes frequencies, ShardedPipeline.refresh_freqs
+    must pick up the variant links learn added to indexed entries, so the
+    mesh's results expand through them exactly as the oracle's do."""
+    from analiticcl_jax.parallel.mesh import ShardedPipeline
+
+    data = datagen.make_dataset(
+        str(tmp_path), seed=3, n_entries=6000, n_queries=2400, n_lines=1
+    )
+    model = VariantModel(alphabet_file=data["alphabet"])
+    model.read_vocabulary(data["lexicon"], VocabParams())
+    model.build()
+    model.use_mesh(dp=2)
+    with open(data["queries"], encoding="utf-8") as f:
+        queries = f.read().split()
+    params = SearchParameters(
+        max_anagram_distance=DistanceThreshold.absolute(3),
+        max_edit_distance=DistanceThreshold.absolute(2),
+        max_matches=3, score_threshold=0.7,
+    )
+    mesh_pipe = model._device
+    model.find_variants_batch(queries[:8], params)  # mesh pipeline is live
+    learned = model.learn_variants(
+        queries[:2000], params, strict=True, auto_build=True
+    )
+    assert learned > 0
+    assert model.learn_profile["build_mode"] == "freq_refresh"
+    assert model._device is mesh_pipe and isinstance(mesh_pipe, ShardedPipeline)
+
+    def tuples(res):
+        return [
+            [(model.decoder[r.vocab_id].text, r.dist_score, r.freq_score, r.via)
+             for r in rs]
+            for rs in res
+        ]
+
+    got = tuples(model.find_variants_batch(queries, params))
+    model.set_backend("oracle")
+    want = tuples(model.find_variants_batch(queries, params))
+    assert any(r[3] is not None for rs in want for r in rs)
+    assert got == want
